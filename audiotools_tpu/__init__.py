@@ -1,4 +1,4 @@
-"""audiotools_tpu: a TPU-native audio codec framework.
+"""audiotools_tpu: an accelerator-native audio codec framework.
 
 A from-scratch rebuild of the capabilities of Python Audio Tools
 (reference at /root/reference) for JAX/XLA/Pallas: lossless codec

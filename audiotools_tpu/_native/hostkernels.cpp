@@ -1,4 +1,4 @@
-// Host-side serial kernels for the TPU audio framework.
+// Host-side serial kernels for the audio framework.
 //
 // The device (JAX/XLA) computes all codec *decisions* and residual
 // arrays in batch; this library handles the inherently byte-serial
@@ -3280,7 +3280,7 @@ int64_t atpu_flac_decode(const uint8_t* data,
 // decodes the partitions in batch (ops/rice_decode.py, a vectorized
 // pointer-doubling state machine over u32 lanes) and runs the
 // synthesis recurrences as fused scans (ops/flac_synth.py) — the
-// TPU-native split of reference src/decoders/flac.c:174-260,1156-1193.
+// host/device split of reference src/decoders/flac.c:174-260,1156-1193.
 //
 // Layouts (int32 unless noted):
 //   frame_meta[f*4]  = {block_size, assignment, bps, frame_byte_len}
@@ -3530,8 +3530,6 @@ extern "C" int64_t atpu_flac_scan(const uint8_t* data,
                 // output slot — the device then assembles the
                 // residual plane with a single-contributor ROW
                 // scatter instead of a per-element general scatter
-                // (the element scatter measured ~370 ms per decode
-                // batch on v5e)
                 int64_t done = 0;
                 do {
                     int64_t cn;
@@ -5782,7 +5780,7 @@ int64_t atpu_shn_decode(const uint8_t* data,
  * decode path (ATPU_SHN_DEC_BACKEND=jax): walks the command stream
  * and entropy-decodes each (block, channel) row's residuals WITHOUT
  * applying predictors — the device inverts DIFF1-3 as k-fold cumsums
- * plus affine warm-up terms (ops/shn_synth.py), the TPU-native
+ * plus affine warm-up terms (ops/shn_synth.py), the batched
  * re-expression of reference src/decoders/shn.c's per-sample loops.
  *
  * row_meta per row: {cmd, block_len, left_shift, chan}

@@ -47,7 +47,7 @@ def add_common_arguments(parser):
                         choices=("normal", "quiet", "silent", "debug"),
                         help=HELP_VERBOSITY)
     parser.add_argument("--version", action="version",
-                        version="Python Audio Tools (TPU) %s"
+                        version="tpu-audio-tools %s"
                         % (VERSION,), help=HELP_VERSION)
 
 

@@ -53,20 +53,13 @@ def _get_synth_jit(key):
     from .flac_enc_fast import _enable_compilation_cache
     _enable_compilation_cache(jax)
 
-    (S_pad, G_pad, n, use_pallas) = key
+    (S_pad, G_pad, n) = key
 
     def run(residuals, qlp, order, shift, sample_size, is_raw,
             ch0_idx, ch1_idx, lweight, ishift, lsb_bits, lsbs):
-        if use_pallas:
-            # host guard (pallas_synthesis_safe) held for this batch:
-            # the whole sign-adaptive walk runs inside one kernel
-            synth = alac_synth._synthesize_pallas(
-                residuals, qlp, order, shift, sample_size, n,
-                max_order=MAX_ORDER)
-        else:
-            synth = alac_synth.synthesize(
-                jnp, residuals, qlp, order, shift, sample_size, n,
-                max_order=MAX_ORDER)
+        synth = alac_synth.synthesize(
+            jnp, residuals, qlp, order, shift, sample_size, n,
+            max_order=MAX_ORDER)
         synth = jnp.where(is_raw[:, None], residuals, synth)
         ch0 = synth[ch0_idx]                    # [G, n]
         ch1 = synth[ch1_idx]
@@ -173,13 +166,7 @@ class JaxALACDecoder(FastALACDecoder):
         lsbs = pad(scan["lsbs"], G_pad)
 
         import jax
-        use_pallas = (jax.default_backend() == "tpu" and
-                      alac_synth.pallas_synthesis_safe(
-                          qlp,
-                          np.where(is_raw, 1, shift),
-                          sample_size,
-                          np.where(is_raw, 0, order)))
-        fn = _get_synth_jit((S_pad, G_pad, spf, use_pallas))
+        fn = _get_synth_jit((S_pad, G_pad, spf))
         (left, right) = jax.device_get(fn(
             residuals, qlp, order.astype(np.int32),
             shift.astype(np.int32), sample_size.astype(np.int32),

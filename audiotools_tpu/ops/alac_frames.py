@@ -52,7 +52,7 @@ def alac_quantize(xp, coeff_row):
     cols = []
     for j in range(order):
         # f32 re-round keeps the integer rounding's input identical
-        # under IEEE f64 and TPU float-float f64 (see ops/lpc.py)
+        # under IEEE f64 and float-float f64 (see ops/lpc.py)
         candidate = lpc_ops.f32round(
             xp, error + coeff_row[..., j] * float(1 <<
                                                   QLP_SHIFT_NEEDED))
@@ -87,8 +87,8 @@ def residual_estimate(xp, X, qlp, order):
     residuals the emitter actually codes track these within a few
     percent, and one estimated-best pass replaces exact sizing of
     every candidate.  All arithmetic is exact in f64 (products
-    <= 2^36, sums <= 2^40 — below even the TPU float-float bound of
-    ~2^47) so numpy/jax/TPU agree bitwise."""
+    <= 2^36, sums <= 2^40 — below even the float-float bound of
+    ~2^47) so numpy and every jax backend agree bitwise."""
     n = X.shape[1]
     count = n - 1 - order
     if count <= 0:

@@ -18,7 +18,7 @@ two C loops are mirror images.
 
 Exactness: samples are < 2^26 (sample_size <= 25 + headroom), the
 prediction sum is <= 32 products of int16 coefficients with 27-bit
-diffs (< 2^43 total — exact under float-float f64), and the
+diffs (< 2^43 total — exact in f64), and the
 adaptation arithmetic is pure int32.  Backend-generic (``xp`` = numpy
 oracle or jax.numpy device), bit-identical on both.
 
@@ -100,7 +100,7 @@ def synthesize(xp, residuals, qlp0, order, shift, sample_size, n,
         diffs = window[:, :K] - base[:, None]
         # products in f64: int32 diffs * int16-range qlp can exceed
         # int32; each f64 product (< 2^45) and the 32-term sum
-        # (< 2^47) stay exact under float-float emulation
+        # (< 2^47) stay exact in f64
         lpc_sum = xp.sum(diffs.astype(xp.float64) *
                          qlp.astype(xp.float64) *
                          tap_live.astype(xp.float64), axis=1)
@@ -183,227 +183,6 @@ def synthesize(xp, residuals, qlp0, order, shift, sample_size, n,
     ((_w, _q), ys) = jax.lax.scan(
         step, (window0, qlp0.astype(jnp.int32)), xs)
     return ys.reshape(n, S).T
-
-
-# Pallas kernel geometry: samples per sequential grid step, lanes per
-# grid row, window planes (max_order + 1), walk steps / coeff planes
-_PL_U = 8
-_PL_LANES = 128
-_PL_W = 9
-_PL_T = 8
-
-
-def pallas_synthesis_safe(qlp, shift, sample_size, order):
-    """host guard for the int32 Pallas synthesis kernel
-
-    The kernel predicts with an int32 hi/lo split (A = sum q *
-    (diff >> 11), B = sum q * (diff & 2047)) recombined through
-    shift-split floors — exact only while A << max(0, 11 - shift),
-    B + half and A all stay below 2^30 for every LPC lane (bounds
-    from the actual per-lane coefficient magnitudes and the
-    sample_size-truncated value range).  24-bit/wide content or
-    orders 9..30 return False and the caller keeps the exact-f64
-    ``lax.scan`` form.  ``ATPU_SYNTH_PALLAS=0`` disables."""
-    import os
-    if os.environ.get("ATPU_SYNTH_PALLAS", "1") == "0":
-        return False
-    qlp = np.asarray(qlp, dtype=np.int64)
-    shift = np.asarray(shift, dtype=np.int64)
-    ss = np.asarray(sample_size, dtype=np.int64)
-    order = np.asarray(order, dtype=np.int64)
-    if np.any((order > _PL_T) & (order < 31)):
-        return False
-    if np.any((shift < 0) | (shift > 24) | (ss < 1) | (ss > 30)):
-        return False
-    lpc = (order >= 1) & (order <= _PL_T)
-    j = np.arange(_PL_T, dtype=np.int64)[None, :]
-    qsum = np.sum(np.abs(qlp[:, :_PL_T]) * (j < order[:, None]),
-                  axis=1)
-    half = np.where(shift > 0, 1 << np.clip(shift - 1, 0, 30), 0)
-    dh_bound = (1 << ss) // 2048 + 1      # |diff| <= 2^ss
-    a_bound = qsum * dh_bound
-    b_bound = qsum * 2048 + half
-    a_shifted = a_bound << np.maximum(11 - shift, 0)
-    lim = 1 << 30
-    ok = (~lpc) | ((a_shifted < lim) & (b_bound < lim) &
-                   (a_bound < lim))
-    return bool(np.all(ok))
-
-
-def _synthesize_pallas(residuals, qlp0, order, shift, sample_size,
-                       n, max_order=_PL_T):
-    """the sign-adaptive synthesis as ONE Pallas TPU kernel
-
-    The lax.scan form pays per-op dispatch for tiny [S]-wide work on
-    every sample step; here the whole recurrence — prediction AND the
-    data-dependent coefficient adaptation walk — runs inside one
-    kernel: the sequential axis is the innermost grid dimension with
-    the value window and the (adapting) coefficients carried in VMEM
-    scratch, _PL_U samples unrolled per grid step.  All dynamic
-    per-lane indexing (prediction base = window[order], walk reads at
-    window[order-1-t], coefficient updates at column order-1-t)
-    becomes one-hot masks over the 9 window / 8 coefficient planes —
-    constant through the stream, precomputed on host.  Prediction
-    uses the same int32 hi/lo split + shift-split floors as
-    ops/flac_synth's kernel (exact under pallas_synthesis_safe); the
-    adaptation walk is pure int32 exactly as the scan form.  Same
-    integers in the same order => byte-identical to synthesize()."""
-    import jax
-    import jax.numpy as jnp
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    assert max_order <= _PL_T
-    S = residuals.shape[0]
-    U = _PL_U
-    while n % U:
-        U //= 2
-    n_steps = n // U
-    LT = _PL_LANES
-    S2 = -(-S // LT) * LT
-    W = _PL_W
-    T = _PL_T
-
-    def pad_lanes(a):
-        pad = S2 - a.shape[0]
-        if pad:
-            a = jnp.pad(a, [(0, pad)] + [(0, 0)] * (a.ndim - 1))
-        return a
-
-    ordv = pad_lanes(jnp.asarray(order).astype(jnp.int32))
-    diff_all = ordv >= 31
-    ord_eff = jnp.where(diff_all, jnp.int32(n), ordv)
-    sh = pad_lanes(jnp.asarray(shift).astype(jnp.int32))
-    ssz = jnp.clip(pad_lanes(jnp.asarray(sample_size)
-                             .astype(jnp.int32)), 1, 30)
-    nmask = ((jnp.int32(1) << ssz) - jnp.int32(1)).astype(jnp.int32)
-    sbit = (jnp.int32(1) << (ssz - 1)).astype(jnp.int32)
-    half = jnp.where(sh > 0,
-                     jnp.int32(1) << jnp.clip(sh - 1, 0, 30),
-                     0).astype(jnp.int32)
-    prm = jnp.stack([ordv, ord_eff, jnp.minimum(sh, 11),
-                     jnp.maximum(sh, 11) - 11,
-                     (sh <= 11).astype(jnp.int32), nmask, sbit,
-                     half, sh], axis=0)                    # [9, S2]
-
-    res_p = pad_lanes(jnp.asarray(residuals).astype(jnp.int32))
-    res_t = res_p.T.reshape(n_steps, U, S2)
-    q_t = pad_lanes(jnp.asarray(qlp0).astype(jnp.int32))[:, :T].T
-
-    jw = jnp.arange(W, dtype=jnp.int32)[:, None]
-    jt = jnp.arange(T, dtype=jnp.int32)[:, None]
-    base_oh = (jw == jnp.clip(ordv, 0, W - 1)[None, :]
-               ).astype(jnp.int32)                         # [W, S2]
-    tap_live = (jt < ordv[None, :]).astype(jnp.int32)      # [T, S2]
-    walk_oh = jnp.concatenate(
-        [(jw == (ordv - 1 - t)[None, :]).astype(jnp.int32)
-         for t in range(T)], axis=0)                       # [T*W, S2]
-    pn_oh = jnp.concatenate(
-        [(jt == jnp.clip(ordv - 1 - t, 0, T - 1)[None, :]
-          ).astype(jnp.int32)
-         for t in range(T)], axis=0)                       # [T*T, S2]
-
-    def kernel(res_ref, prm_ref, q0_ref, boh_ref, tl_ref, woh_ref,
-               pnoh_ref, out_ref, win_ref, q_ref):
-        t = pl.program_id(1)
-
-        @pl.when(t == t - t)
-        def _init():
-            win_ref[:] = jnp.zeros_like(win_ref)
-            q_ref[:] = q0_ref[:]
-
-        ord_eff_v = prm_ref[1, :]
-        sle_v = prm_ref[2, :]
-        shi_v = prm_ref[3, :]
-        islo_v = prm_ref[4, :]
-        nmask_v = prm_ref[5, :]
-        sbit_v = prm_ref[6, :]
-        half_v = prm_ref[7, :]
-        shraw_v = prm_ref[8, :]
-        boh = boh_ref[:]
-        tl = tl_ref[:]
-        win = win_ref[:]
-        q = q_ref[:]
-
-        def trunc(v):
-            u = v & nmask_v
-            return (u ^ sbit_v) - sbit_v
-
-        def sgn_i32(v):
-            return ((v > 0).astype(jnp.int32) -
-                    (v < 0).astype(jnp.int32))
-
-        for u in range(U):
-            res = res_ref[0, u, :]
-            i_s = t * U + u
-            prev = win[0, :]
-            base = jnp.sum(win * boh, axis=0, dtype=jnp.int32)
-            A = jnp.zeros_like(base)
-            B = jnp.zeros_like(base)
-            for j in range(T):
-                d = win[j, :] - base
-                qj = q[j, :] * tl[j, :]
-                A = A + qj * (d >> 11)
-                B = B + qj * (d & 2047)
-            Bh = B + half_v
-            pred_lo = (A << (11 - sle_v)) + (Bh >> sle_v)
-            pred_hi = (A + (Bh >> 11)) >> shi_v
-            outval = jnp.where(islo_v == 1, pred_lo, pred_hi)
-            main_val = trunc(outval + res + base)
-
-            is_main = i_s > ord_eff_v
-            residual = res
-            s0 = sgn_i32(residual)
-            for tt in range(T):
-                wv = jnp.sum(win * woh_ref[tt * W:(tt + 1) * W, :],
-                             axis=0, dtype=jnp.int32)
-                active = ((residual * s0 > 0) & (tl[tt, :] == 1) &
-                          is_main)
-                val = base - wv
-                sg = s0 * sgn_i32(val)
-                # zeros_like, not a bare 0: the weak-typed literal
-                # under the global x64 flag hits jax 0.9.0's infinite
-                # promotion recursion when lowered through Mosaic
-                q = q - (pnoh_ref[tt * T:(tt + 1) * T, :] *
-                         jnp.where(active, sg,
-                                   jnp.zeros_like(sg))[None, :])
-                delta = ((val * sg) >> shraw_v) * jnp.int32(tt + 1)
-                residual = jnp.where(active, residual - delta,
-                                     residual)
-
-            diff_val = trunc(prev + res)
-            val_out = jnp.where(
-                i_s == i_s - i_s, res,
-                jnp.where(i_s <= ord_eff_v, diff_val, main_val))
-            out_ref[0, u, :] = val_out
-            win = jnp.concatenate([val_out[None, :], win[:-1]],
-                                  axis=0)
-        win_ref[:] = win
-        q_ref[:] = q
-
-    interpret = jax.default_backend() != "tpu"
-    out = pl.pallas_call(
-        kernel,
-        grid=(S2 // LT, n_steps),
-        in_specs=[
-            pl.BlockSpec((1, U, LT), lambda s, t: (t, t - t, s)),
-            pl.BlockSpec((9, LT), lambda s, t: (t - t, s)),
-            pl.BlockSpec((T, LT), lambda s, t: (t - t, s)),
-            pl.BlockSpec((W, LT), lambda s, t: (t - t, s)),
-            pl.BlockSpec((T, LT), lambda s, t: (t - t, s)),
-            pl.BlockSpec((T * W, LT), lambda s, t: (t - t, s)),
-            pl.BlockSpec((T * T, LT), lambda s, t: (t - t, s)),
-        ],
-        out_specs=pl.BlockSpec((1, U, LT),
-                               lambda s, t: (t, t - t, s)),
-        out_shape=jax.ShapeDtypeStruct((n_steps, U, S2), jnp.int32),
-        scratch_shapes=[
-            pltpu.VMEM((W, LT), jnp.int32),
-            pltpu.VMEM((T, LT), jnp.int32),
-        ],
-        interpret=interpret,
-    )(res_t, prm, q_t, base_oh, tap_live, walk_oh, pn_oh)
-    return out.reshape(n, S2).T[:S]
 
 
 def decorrelate(xp, ch0, ch1, lweight, ishift):

@@ -1,18 +1,17 @@
 """Device programs for the PCM converter / verification suite.
 
 The three host converter kernels the north star names get env-gated
-device backends here, each designed TPU-first rather than as a port
-of the reference's scalar loops:
+device backends here, each designed as batched array programs rather
+than as ports of the reference's scalar loops:
 
 * **Resampler FIR** (reference ``src/pcmconverter.c:360-466`` wrapping
   the vendored libsamplerate polyphase sinc, ``src/samplerate/
   src_sinc.c``): the per-output-sample tap loop becomes a batched
-  window gather + coefficient gather with a float-float (x64) dot per
+  window gather + coefficient gather with an f64 dot per
   output frame — one jitted program per (chunk, taps, channels) shape.
-  Tolerance vs the host IEEE-f64 kernel: the TPU's float-float f64
-  rounds within ~2^-49 relative, so integer outputs match the host
-  except when a value sits within ~2^-25 of a rounding boundary
-  (observed: 0 or a handful of +-1 LSB per million samples).
+  Tolerance vs the host IEEE-f64 kernel: the device sums the taps in
+  another order, so an integer output can differ by 1 LSB when its
+  value sits within a few ulps of a rounding boundary.
 
 * **ReplayGain equal-loudness filter** (reference
   ``src/replaygain.c:434,497,566-671``): the 10th-order Yulewalk +
@@ -20,9 +19,10 @@ of the reference's scalar loops:
   response decays below f64 noise within a few thousand samples at
   every supported rate — so on device the sequential recurrence
   becomes a single causal FIR convolution with the truncated combined
-  impulse response (MXU conv), followed by squaring and 50 ms window
-  sums.  The reference's own statistic quantizes to 0.01 dB histogram
-  bins, far above the truncation + f32 conv noise.
+  impulse response (an f32 conv at HIGHEST precision), followed by
+  squaring and 50 ms window sums.  The reference's own statistic
+  quantizes to 0.01 dB histogram bins, far above the truncation + f32
+  conv noise.
 
 * **AccurateRip V1/V2 MACs** (reference ``src/accuraterip.c:44-50``):
   offset-windowed multiply-accumulate CRCs in exact uint32 lattice
@@ -70,7 +70,7 @@ def _pad_pow2(m, floor=1024):
 
 
 def _resample_jit(M, taps, ch, L, D):
-    """jitted windowed-sinc FIR evaluation (float-float f64)
+    """jitted windowed-sinc FIR evaluation (f64)
 
     out[i, c] = sum_t hist[starts[i] + t, c] * bank[q[i], t]
     """
@@ -83,9 +83,7 @@ def _resample_jit(M, taps, ch, L, D):
         def run(hist, starts, q, bank):
             # CHANNEL-MAJOR windows: hist transposes to [ch, L] so the
             # gathered window tensor is [ch, M, taps] with taps minor
-            # (tile-aligned; the [M, taps, ch] form put ch = 2 in the
-            # minor dim and XLA padded each (8, 128) tile 64x — a
-            # 16 GB HBM blowup at M = 65536)
+            # (the [M, taps, ch] form puts ch = 2 in the minor dim)
             idx = starts[:, None] + jnp.arange(taps)[None, :]  # [M, t]
             hist_t = hist.T                       # [ch, L] f64
             win = hist_t[:, idx]                  # [ch, M, taps]
@@ -112,7 +110,7 @@ def resample_fir_device(hist, starts, q, bank):
     if M == 0:
         return np.zeros((0, ch), dtype=np.float64)
     # slab the output rows: the [ch, M_slab, taps] window tensor is
-    # the program's footprint (float-float f64), so 16384-row slabs
+    # the program's footprint (f64), so 16384-row slabs
     # keep it ~128 MB regardless of the caller's chunk size
     SLAB = 16384
     Lp = _pad_pow2(L + taps)
@@ -172,7 +170,7 @@ def rg_combined_fir(sample_rate):
 
 
 def _rg_jit(n, L, win):
-    """jitted filter+window program: causal FIR conv (f32 MXU), square,
+    """jitted filter+window program: causal FIR conv (f32), square,
     per-50ms-window sums; also the channel peak"""
     key = ("rg", n, L, win)
     if key not in _jit_cache:
@@ -185,8 +183,10 @@ def _rg_jit(n, L, win):
             # x: f32 [2, n] (both channels); h: f32 [L]
             xp_ = jnp.pad(x, [(0, 0), (L - 1, 0)])[:, None, :]
             kern = h[None, None, ::-1]
+            # HIGHEST: a default-precision f32 conv may run in TF32
             y = lax.conv_general_dilated(
-                xp_, kern, (1,), "VALID")[:, 0, :]       # [2, n]
+                xp_, kern, (1,), "VALID",
+                precision=lax.Precision.HIGHEST)[:, 0, :]  # [2, n]
             sq = y[0] * y[0] + y[1] * y[1]               # [n]
             nwin = n // win
             # f64 window accumulation: keeps the one remaining f32

@@ -4,7 +4,7 @@ The analysis kernels' cross-backend exactness contract (ops/lpc.py
 ``f32round``) permits exactly one shape of operation: a SINGLE f64
 add/mul/div on f32-valued operands followed by an immediate f32
 re-round — such ops are exact (or round in a vanishingly small band)
-under IEEE f64 and the TPU's float-float emulation alike, because any
+under IEEE f64 and float-float f64 emulation alike, because any
 sum/product of two f32s is representable as a pair of f32s (the
 classic Møller/Dekker error-term theorems).  Single-f32 precision (24
 bits) costs real compression on tonal content though: Levinson-Durbin

@@ -1,6 +1,6 @@
 """Batched FLAC subframe analysis and decision kernels.
 
-The TPU-native re-expression of the reference encoder's per-sample trial
+The batched re-expression of the reference encoder's per-sample trial
 loops (``/root/reference/src/encoders/flac.c:79-120`` and its spec
 ``audiotools/py_encoders/flac.py:166-563``): subframe trials, LPC order
 sweeps and Rice partition searches become *vectorized argmins over
@@ -10,8 +10,8 @@ candidate axes* on ``[subframes, block_size]`` tensors.
 (host path / oracle cross-check) or jax.numpy inside ``jit`` (device
 path).  Both backends produce byte-identical streams.
 
-TPU dtype discipline (the round-2 redesign — TPUs have no native f64,
-so the round-1 f64-everywhere kernel ran emulated):
+Dtype discipline (the kernel must stay exact where f64 is emulated,
+and f64 is the slow path even where it is native):
 
 * all big ``[.., n]`` tensors are **int32** (residual stacks, zigzag
   values, diffs) or **float32** (the windowed autocorrelation inputs)
@@ -19,7 +19,7 @@ so the round-1 f64-everywhere kernel ran emulated):
   partial sums over 64-element chunks (exact — bounded by 64*max|x|),
   promoted to f64 and combined (f64 adds of integers are exact and
   order-independent while totals stay < 2^47 — the representable
-  bound of the TPU's float-float f64 emulation, stricter than IEEE
+  bound of float-float (f32-pair) f64 emulation, stricter than IEEE
   f64's 2^53; all totals here are bit counts or |residual| sums far
   below it), so results equal the mathematically exact sums on every
   backend
@@ -183,7 +183,7 @@ def _exp2i(xp, e):
     """exact 2^e for (possibly negative) integer arrays, as float64
 
     via IEEE bit construction — the transcendental ``exp2`` is NOT
-    exact for integral args under TPU float-float f64 emulation"""
+    exact for integral args under float-float f64 emulation"""
     return lpc_ops.exact_exp2(xp, e)
 
 
@@ -205,7 +205,7 @@ def exact_i32_sum(xp, x, axis=-1, chunk=_CHUNK):
     two-stage: int32 partial sums over `chunk`-element groups (the
     caller bounds |x| so partials cannot wrap — see sum_chunk_for),
     then f64 combination — exact in any order for integer totals
-    below the representable bound (2^53 IEEE, ~2^47 under TPU
+    below the representable bound (2^53 IEEE, ~2^47 under
     float-float f64 emulation; all totals here are far below both).
     the input is zero-padded to a chunk multiple."""
     assert axis in (-1, x.ndim - 1)
@@ -224,7 +224,7 @@ def exact_i32_sum(xp, x, axis=-1, chunk=_CHUNK):
 def pairwise_i32_f64_sum(xp, x):
     """exact f64 sum of int32 values (no int32 stage): every int32 is
     exact in f64 and integer f64 sums are exact in any order while
-    totals stay representable (2^53 IEEE, ~2^47 TPU float-float), so
+    totals stay representable (2^53 IEEE, ~2^47 float-float), so
     this is deterministic on every backend"""
     return xp.sum(x.astype(xp.float64), axis=-1)
 
@@ -417,8 +417,7 @@ def analyze_subframes(xp, X, bps, n, max_lpc_order, qlp_precision,
                 # form over the TINY [S, C, parts] arrays — the
                 # per-porder sum(u >> r) passes this replaces
                 # re-read the full [S, C, n] zigzag plane seven
-                # times (~35 ms of the 512-block batch's wall; the
-                # whole program is ~15 ms without them).  Model
+                # times, more than the rest of the program.  Model
                 # ranking and stereo assignment tolerate the
                 # estimate because the FINAL (porder, params) are
                 # re-searched exactly on exact residuals at emit
@@ -463,8 +462,7 @@ def analyze_subframes(xp, X, bps, n, max_lpc_order, qlp_precision,
             # residual chain per consumer.  With the int32
             # recombination in lpc_residuals_i32 the duplicated chain
             # is cheap integer work, so the default leaves fusion
-            # alone (A/B on v5e: barrier 78 ms vs fused 65 ms per
-            # 512-block batch).
+            # alone.
             import jax.lax
             u = jax.lax.optimization_barrier(u)
 
@@ -500,8 +498,8 @@ def analyze_subframes(xp, X, bps, n, max_lpc_order, qlp_precision,
         # int32 partials exact).  A single consumer of u lets XLA
         # fuse the whole residual->zigzag chain into the reduce
         # instead of re-deriving it once per plane (the 16-plane
-        # byte-split form this replaces cost +16 ms/512-block batch
-        # on v5e via duplication fusion).
+        # byte-split form this replaces re-derived it through
+        # duplication fusion).
         rr = xp.arange(J0 + 1, dtype=xp.int32)
         vals = u_fin[..., None, :] >> rr[:, None]  # [S,C,parts,R',ps]
         contrib = xp.where(rr[:, None] < J0, vals & 1, vals)

@@ -27,12 +27,17 @@ the pipeline is built so no optimization can change any value:
 * transcendental outputs (log) are immediately rounded to f32
   precision, collapsing sub-ulp libm/XLA differences
 
-**float-float f64 (TPU x64 emulation).**  TPUs have no native f64;
-XLA's x64 rewriter emulates it as a (hi, lo) *pair of f32s* (~49-bit
-significand, non-IEEE rounding).  Measured consequences on real TPU
-hardware: ``exp2`` of integral arguments is NOT exact, general
-(non-integer) f64 add chains round differently than IEEE f64, and
-f64 division is approximate.  The spec therefore tightens further:
+On a GPU, f64 is native IEEE and the NVPTX backend contracts
+multiply-adds freely; the exact-product rule above makes every such
+contraction round to the same value (``chip_smoke.py`` holds the
+encoder byte-identical to the numpy backend on the card).
+
+**float-float f64 (x64 emulation).**  Where an accelerator has no
+native f64, XLA's x64 rewriter emulates it as a (hi, lo) *pair of
+f32s* (~49-bit significand, non-IEEE rounding): ``exp2`` of integral
+arguments is NOT exact, general (non-integer) f64 add chains round
+differently than IEEE f64, and f64 division is approximate.  The spec
+holds under that emulation too, so it tightens further:
 
 * every value is either an INTEGER below 2^47 (exactly representable
   and exactly summable as two f32s, in any order) or an f32-VALUED
@@ -71,7 +76,8 @@ def f32round(xp, x):
     evaluation (see module docstring).
 
     Implemented as convert-to-f32 / convert-back (lowerable on every
-    backend — TPU's x64 rewriter cannot lower f64 reduce_precision)
+    backend — an x64-emulating rewriter cannot lower f64
+    reduce_precision)
     with an optimization barrier between the converts so
     allow-excess-precision cannot elide the downcast/upcast pair."""
     if xp is np:
@@ -111,7 +117,7 @@ def tukey_window_df(n, alpha=0.5):
     """the tukey window split into a double-f32 (hi, lo) pair ON HOST
 
     The split MUST happen in IEEE f64 (numpy): splitting a traced
-    window on a TPU backend would derive the lo half from the
+    window on an x64-emulating backend would derive the lo half from the
     float-float representation of the f64 constant, whose ~2^-49
     representation error sits at the lo half's own last-bit scale —
     a few percent of elements would round differently than on CPU,
@@ -131,7 +137,7 @@ def exact_exp2(xp, e):
 
     Built from the IEEE-754 bit pattern ((e + 1023) << 52) rather than
     the transcendental ``exp2``, which is NOT exact for integral
-    arguments on TPU backends (x64 float-float emulation).  Exponents
+    arguments under x64 float-float emulation.  Exponents
     clamp to the normal range [-1022, 1023]."""
     if xp is np:
         e = np.clip(np.asarray(e).astype(np.int64), -1022, 1023)
@@ -316,10 +322,10 @@ def lpc_residuals_i32(xp, samples, qlp, shifts, clip_bits):
     The prediction accumulator can exceed int32 (|q|<2^13, |x|<2^25),
     so samples split into hi/lo halves (x = hi*2^11 + lo, 0 <= lo <
     2^11) and accumulate separately in int32 — the O(K^2 n) hot loop
-    stays native int32 on TPU (no float-float emulation).  The
-    recombination floor((A*2^11 + B) / 2^s) is ALSO pure int32, by
-    shift splitting (the f64 form it replaces was the residual
-    stage's top cost under TPU float-float emulation):
+    stays native int32 (no f64 at all).  The recombination
+    floor((A*2^11 + B) / 2^s) is ALSO pure int32, by shift splitting
+    (the f64 form it replaces was the residual stage's top cost under
+    float-float emulation):
 
       s <= 11:  A*2^11 is a multiple of 2^s, so the floor splits
                 exactly: pred = (A << (11-s)) + (B >> s) (arithmetic
@@ -380,7 +386,7 @@ def lpc_residuals_f64(xp, samples, qlp, shifts, clip_bits):
     SMALL residual, which under-sizes Rice parameters and explodes the
     emitters' unary coding): every product q * x is of integers below
     2^14 and 2^26, so the f64 product (< 2^40) is exact, the <= 32
-    term sum stays below 2^45 — exact in any order even under TPU
+    term sum stays below 2^45 — exact in any order even under
     float-float f64 (representable bound ~2^47), immune to FMA
     contraction by exactness — and the arithmetic shift is an exact
     power-of-two scale (exact_exp2) + floor.
@@ -433,7 +439,7 @@ def lpc_residuals(xp, samples, qlp, shifts, value_bits, precision,
       oracle's decisions.
 
     16-bit stereo at precision 14 / order 12 qualifies and keeps the
-    O(K^2 n) hot loop in native TPU int32.  Otherwise the f64 path
+    O(K^2 n) hot loop in native int32.  Otherwise the f64 path
     computes the true value exactly (products fit 2^53 / float-float
     2^47 for all audio), clipped to +-2^clip_bits (see
     lpc_residuals_f64)."""
@@ -463,7 +469,7 @@ def ilog2_trunc(xp, values):
     deterministic across backends: an approximate log2 seeds an exact
     floor which is then corrected with exact power-of-two comparisons
     (powers of two from exact_exp2 — the transcendental exp2 is NOT
-    exact for integral args under TPU float-float f64)"""
+    exact for integral args under float-float f64)"""
     approx = xp.floor(xp.log2(values))
     # correct the floor estimate by at most one step each way
     approx = xp.where(
@@ -482,8 +488,8 @@ def frexp_exponent(xp, values):
     [0.5, 1) — i.e. floor(log2(v)) + 1
 
     Same exact-correction construction as ilog2_trunc; xp.frexp itself
-    is unusable on device (its s64 bitcast is rejected by the TPU X64
-    rewriter)."""
+    is unusable on device (its s64 bitcast is rejected by XLA's x64
+    emulation rewriter)."""
     approx = xp.floor(xp.log2(values))
     approx = xp.where(
         exact_exp2(xp, approx + 1.0) <= values, approx + 1.0, approx)

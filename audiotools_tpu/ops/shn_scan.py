@@ -1,6 +1,6 @@
 """Batched Shorten encode analysis (diff-order + energy decisions).
 
-The TPU-native re-expression of the reference Shorten encoder's
+The batched re-expression of the reference Shorten encoder's
 per-sample decision loops (``/root/reference/src/encoders/shn.c``,
 spec ``audiotools/py_encoders/shn.py:215-254``, oracle ``ref/shn.py``):
 every (block, channel) cell's zero-flag, wasted-bits shift, best diff

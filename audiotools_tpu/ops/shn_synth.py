@@ -1,7 +1,7 @@
 """Batched Shorten decode synthesis: diff-predictor inversion as
 k-fold cumulative sums plus closed-form warm-up terms.
 
-The TPU-native re-expression of the reference SHN decoder's
+The batched re-expression of the reference SHN decoder's
 per-sample loops (``/root/reference/src/decoders/shn.c:1142``, spec
 ``audiotools/py_decoders/shn.py`` read_diff1-3, oracle
 ``ref/shn.py:425-446``): a DIFFk block satisfies ``D^k x = r`` (k-th

@@ -1,7 +1,7 @@
 """Batched TTA encode analysis: decorrelation + fixed predictor +
 the hybrid adaptive filter as one fused scan.
 
-The TPU-native re-expression of the reference TTA encoder's per-sample
+The batched re-expression of the reference TTA encoder's per-sample
 loop (``/root/reference/src/encoders/tta.c``, spec
 ``audiotools/py_encoders/tta.py:151-225``, oracle ``ref/tta.py``):
 channel decorrelation and the fixed predictor are pure vector ops; the

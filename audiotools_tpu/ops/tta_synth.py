@@ -2,7 +2,7 @@
 predictor inverted as ONE fused scan, decorrelation undone as vector
 ops.
 
-The TPU-native re-expression of the reference TTA decoder's
+The batched re-expression of the reference TTA decoder's
 per-sample loop (``/root/reference/src/decoders/tta.c:849``, spec
 ``audiotools/py_decoders/tta.py``, host kernel
 ``atpu_tta_decode_frame``): the byte-serial adaptive Rice layer stays
@@ -99,119 +99,6 @@ def inverse_filter_predict(xp, residuals, bps):
     return ys.T
 
 
-# Pallas kernel geometry (samples per sequential grid step, lanes)
-_PL_U = 8
-_PL_LANES = 128
-
-
-def _inverse_pallas(residuals, bps):
-    """inverse_filter_predict as ONE Pallas TPU kernel
-
-    Pure wrapping int32 throughout (the filter state machine is
-    defined mod 2^32 on both encode and decode sides), so unlike the
-    ALAC kernel no magnitude guard is needed.  The filter state (qm,
-    dx, dl planes + prev residual/output rows) lives in VMEM scratch
-    across the sequential sample grid with _PL_U samples unrolled per
-    step — same integers in the same order as the lax.scan form =>
-    byte-identical."""
-    import jax
-    import jax.numpy as jnp
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    fshift = tta_scan.filter_shift_for(bps)
-    shift = tta_scan.shift_for(bps)
-    round_v = 1 << (fshift - 1)
-    L = residuals.shape[0]
-    n = residuals.shape[1]
-    U = _PL_U
-    while n % U:
-        U //= 2
-    n_steps = n // U
-    LT = _PL_LANES
-    L2 = -(-L // LT) * LT
-
-    res_p = jnp.asarray(residuals).astype(jnp.int32)
-    if L2 != L:
-        res_p = jnp.pad(res_p, [(0, L2 - L), (0, 0)])
-    res_t = res_p.T.reshape(n_steps, U, L2)
-
-    def kernel(res_ref, out_ref, qm_ref, dx_ref, dl_ref, st_ref):
-        t = pl.program_id(1)
-
-        @pl.when(t == t - t)
-        def _init():
-            qm_ref[:] = jnp.zeros_like(qm_ref)
-            dx_ref[:] = jnp.zeros_like(dx_ref)
-            dl_ref[:] = jnp.zeros_like(dl_ref)
-            st_ref[:] = jnp.zeros_like(st_ref)
-
-        qm = qm_ref[:]
-        dx = dx_ref[:]
-        dl = dl_ref[:]
-        pr = st_ref[0, :]
-        po = st_ref[1, :]
-
-        def sgn_i32(v):
-            return ((v > 0).astype(jnp.int32) -
-                    (v < 0).astype(jnp.int32))
-
-        def sconst(row, mag):
-            # explicit int32 scalars, not bare literals: weak-typed
-            # ints under the global x64 flag recurse in Mosaic
-            # lowering (see ops/alac_synth.py kernel)
-            return jnp.where(dl[row, :] >= 0, jnp.int32(mag),
-                             jnp.int32(-mag))
-
-        for u in range(U):
-            res = res_ref[0, u, :]
-            i_s = t * U + u
-            first = i_s == i_s - i_s
-            qm2 = qm + sgn_i32(pr)[None, :] * dx
-            acc = jnp.sum(dl * qm2, axis=0,
-                          dtype=jnp.int32) + round_v
-            p = jnp.where(first, res - (round_v >> fshift),
-                          res + (acc >> fshift))
-            qm = jnp.where(first, qm, qm2)
-            d7 = p - dl[7, :]
-            d6 = d7 - dl[6, :]
-            d5 = d6 - dl[5, :]
-            dx = jnp.stack([dx[1, :], dx[2, :], dx[3, :], dx[4, :],
-                            sconst(4, 1), sconst(5, 2), sconst(6, 2),
-                            sconst(7, 4)], axis=0)
-            dl = jnp.stack([dl[1, :], dl[2, :], dl[3, :], dl[4, :],
-                            d5, d6, d7, p], axis=0)
-            x = jnp.where(first, p, p + (po + ((-po) >> shift)))
-            po = x
-            pr = res
-            out_ref[0, u, :] = x
-        qm_ref[:] = qm
-        dx_ref[:] = dx
-        dl_ref[:] = dl
-        st_ref[0, :] = pr
-        st_ref[1, :] = po
-
-    interpret = jax.default_backend() != "tpu"
-    out = pl.pallas_call(
-        kernel,
-        grid=(L2 // LT, n_steps),
-        in_specs=[
-            pl.BlockSpec((1, U, LT), lambda s, t: (t, t - t, s)),
-        ],
-        out_specs=pl.BlockSpec((1, U, LT),
-                               lambda s, t: (t, t - t, s)),
-        out_shape=jax.ShapeDtypeStruct((n_steps, U, L2), jnp.int32),
-        scratch_shapes=[
-            pltpu.VMEM((8, LT), jnp.int32),
-            pltpu.VMEM((8, LT), jnp.int32),
-            pltpu.VMEM((8, LT), jnp.int32),
-            pltpu.VMEM((2, LT), jnp.int32),
-        ],
-        interpret=interpret,
-    )(res_t)
-    return out.reshape(n, L2).T[:L]
-
-
 def decorrelate_inverse(xp, samples):
     """undoes encoder channel decorrelation (per-sample algebra)
 
@@ -233,15 +120,6 @@ def synthesize(xp, residuals, bps):
     """full TTA decode synthesis: [F, n, ch] residuals -> samples"""
     (F, n, ch) = residuals.shape
     lanes = xp.transpose(residuals, (0, 2, 1)).reshape(F * ch, n)
-    use_pallas = False
-    if xp is not np:
-        import os
-        import jax
-        use_pallas = (os.environ.get("ATPU_SYNTH_PALLAS", "1")
-                      != "0" and jax.default_backend() == "tpu")
-    if use_pallas:
-        x = _inverse_pallas(lanes, bps)
-    else:
-        x = inverse_filter_predict(xp, lanes, bps)
+    x = inverse_filter_predict(xp, lanes, bps)
     x = xp.transpose(x.reshape(F, ch, n), (0, 2, 1))
     return decorrelate_inverse(xp, x)

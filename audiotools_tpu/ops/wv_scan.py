@@ -1,6 +1,6 @@
 """WavPack decorrelation passes as batched device scans.
 
-The TPU-native re-expression of the reference WavPack encoder's
+The batched re-expression of the reference WavPack encoder's
 per-sample decorrelation loops (``/root/reference/src/encoders/
 wavpack.c``, spec ``audiotools/py_encoders/wavpack.py:955-1136``,
 oracle ``ref/wavpack.py correlation_pass_1ch/_2ch``):

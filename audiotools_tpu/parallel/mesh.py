@@ -1,12 +1,12 @@
 """Device-mesh sharding for batch codec work.
 
-The TPU-native replacement for the reference's fork-based job queue
+The device replacement for the reference's fork-based job queue
 (``/root/reference/audiotools/__init__.py:5263`` ExecProgressQueue):
 independent codec blocks — the (track, FLAC-frame) work units — are
 data-parallel by construction, so they shard across a 1-D
 ``jax.sharding.Mesh`` along a ``blocks`` axis, with XLA inserting any
 collectives.  A multi-host transcode farm extends the same mesh over
-DCN via ``jax.distributed``; single-chip encode uses the degenerate
+hosts via ``jax.distributed``; single-card encode uses the degenerate
 1-device mesh.
 """
 
@@ -19,19 +19,19 @@ import numpy as np
 
 def init_distributed(coordinator_address=None, num_processes=None,
                      process_id=None):
-    """joins this process into a multi-host mesh over DCN
+    """joins this process into a multi-host mesh
 
-    the TPU-native analog of the reference farm spanning machines:
+    the device analog of the reference farm spanning machines:
     every host runs the same program, ``jax.distributed`` stitches
     their devices into one global mesh, and the sharded encode steps
     below work unchanged (XLA routes the one replicated reduction
-    over DCN).  Arguments default to the ATPU_COORDINATOR /
+    between hosts).  Arguments default to the ATPU_COORDINATOR /
     ATPU_NUM_PROCESSES / ATPU_PROCESS_ID environment variables so CLI
     tools can join a fleet without code changes.
 
     On CPU backends the gloo collectives implementation is selected
     (required for cross-process CPU collectives; it is also how the
-    2-process dryrun in tests/test_multihost.py runs without TPUs)."""
+    2-process dryrun in tests/test_multihost.py runs without a GPU)."""
     import jax
 
     if coordinator_address is None:
@@ -87,21 +87,17 @@ def jax_devices(platform=None, max_devices=None):
 
 
 def make_mesh(n_devices=None, platform=None, axis_name="blocks"):
-    """builds a 1-D Mesh over the available devices"""
+    """builds a 1-D Mesh over the first n_devices devices of the
+    platform (ATPU_JAX_PLATFORM, else JAX's default); raises when the
+    platform has fewer — the mesh never falls back to another one"""
     from jax.sharding import Mesh
     devices = jax_devices(platform)
     if n_devices is not None:
         if len(devices) < n_devices:
-            # fall back to the virtual CPU backend (e.g. when the
-            # default platform is a single accelerator but the host
-            # platform was widened via xla_force_host_platform_device_count)
-            try:
-                devices = jax_devices("cpu")
-            except RuntimeError:
-                pass
-        if len(devices) < n_devices:
-            raise ValueError("requested %d devices but only %d available"
-                             % (n_devices, len(devices)))
+            raise ValueError("requested %d %s devices but only %d "
+                             "available" % (n_devices,
+                                            devices[0].platform,
+                                            len(devices)))
         devices = devices[:n_devices]
     return Mesh(np.array(devices), (axis_name,))
 
@@ -114,7 +110,7 @@ def sharded_analyze(mesh, n, max_lpc_order, qlp_precision, porders,
     window [n] f64) with S divisible by the mesh size; the subframe
     axis is sharded, the window is replicated, and every output is
     sharded the same way — blocks never communicate (the codec's
-    blockwise independence), so this scales linearly over ICI
+    blockwise independence), so this scales linearly with devices
     """
     import jax
     jax.config.update("jax_enable_x64", True)
@@ -148,7 +144,7 @@ def sharded_packed_encode_step(mesh, n, max_lpc_order, qlp_precision,
     the packed decision output is sharded the same way — frames never
     communicate (the codec's blockwise independence).  The replicated
     total-bits statistic is the one cross-shard reduction (XLA inserts
-    the psum over ICI)."""
+    the psum)."""
     import jax
     jax.config.update("jax_enable_x64", True)
     import jax.numpy as jnp

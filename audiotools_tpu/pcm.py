@@ -1,6 +1,6 @@
 """PCM data plane: FrameList / FloatFrameList.
 
-TPU-native redesign of the reference's C FrameList type
+Batched redesign of the reference's C FrameList type
 (``/root/reference/src/pcm.c:117`` and ``:952``): instead of a C array of
 ints with scalar (de)interleave loops, samples live in a NumPy
 ``int32[frames, channels]`` array that converts zero-copy to a JAX device

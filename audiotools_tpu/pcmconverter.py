@@ -241,7 +241,7 @@ class Resampler:
         from .ops import converters as _conv
         if _conv.resample_backend() == "jax":
             # device FIR (north-star device converter suite); matches
-            # the host kernel within float-float rounding (~2^-49):
+            # the host kernel within 1 LSB (f64 sums in another order):
             # see tests/test_converters_device.py
             out = _conv.resample_fir_device(padded, starts,
                                             q.astype(np.int32), bank)

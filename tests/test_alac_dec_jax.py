@@ -3,7 +3,7 @@
 The device path (host entropy scan + fused sign-adaptive predictor
 scan) must decode byte-identically to the host decoder and the
 oracle across the signal matrix.  Runs on the CPU JAX backend
-(conftest); the same jitted programs serve the TPU.
+(conftest); the same jitted programs serve the GPU.
 """
 
 import io

@@ -8,7 +8,7 @@ residual recurrences always consume exact samples, so any candidate
 table yields a lossless stream; groups whose quantized fit errs above
 the step band re-analyze exactly and keep the better-scoring set.
 Reference counterpart: none (the reference's C encoder
-``/root/reference/src/encoders/alac.c`` has no transfer link to feed).
+``/root/reference/src/encoders/alac.c`` has no device transfer to feed).
 """
 
 import io

@@ -2,7 +2,7 @@
 
 The encode analysis spec (ops/lpc.py, ops/flac_frames.py,
 ops/alac_frames.py) promises bit-identical decisions from numpy, CPU
-XLA, and TPU XLA — including TPUs' float-float f64 emulation, whose
+XLA and accelerator XLA — including float-float f64 emulation, whose
 non-IEEE rounding (inexact ``exp2`` of integral args, ~49-bit add
 chains, approximate division) historically diverged from numpy at the
 ±1-bit level in subframe size totals and flipped argmin decisions

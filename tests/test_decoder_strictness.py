@@ -1,7 +1,7 @@
 """Decoder strictness: malformed streams must raise, never pass.
 
 The encoder's compliance evidence leans on self-decode (no external
-``flac`` binary exists in this environment — VERDICT round 1 weak #6),
+``flac`` binary exists in this environment),
 so the decoder itself must demonstrably REJECT malformed input for the
 round trip to mean anything: a decoder that shrugs at bad CRCs or
 trailing garbage would also shrug at encoder bugs.

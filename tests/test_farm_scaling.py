@@ -2,12 +2,12 @@
 
 ATPU_FARM_DEVICE_SHARD=1 pins each farm worker's analysis dispatches
 to one mesh device (round-robin) — per-device batch queues, the
-TPU-native replacement for the reference's fork-per-track
+device replacement for the reference's fork-per-track
 ExecProgressQueue (reference __init__.py:5263) when several chips are
 attached.  On this box the mesh is 8 VIRTUAL CPU devices sharing one
 core, so the assertions are about correctness and dispatch structure;
-the wall-clock scaling curve is measured (and recorded in BASELINE.md)
-for the record, not asserted.
+the wall-clock scaling curve is printed for the record, not
+asserted.
 """
 
 import io
@@ -71,7 +71,8 @@ def test_farm_device_shard_bit_exact(tmp_path, monkeypatch):
     (base, dt1) = encode_all("a", workers=1, shard=False)
     (sharded, dt8) = encode_all("b", workers=8, shard=True)
     assert base == sharded
-    # record for BASELINE.md (virtual mesh on one core: expect ~flat)
+    # for the record (a virtual mesh shares the host's cores: expect
+    # ~flat)
     print("farm 1-worker unsharded: %.2fs; 8-worker device-sharded: "
           "%.2fs" % (dt1, dt8))
 

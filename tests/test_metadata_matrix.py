@@ -5,7 +5,7 @@ every tagging format (/root/reference/test/test_metadata.py): each
 format's ``converted()`` classmethod must preserve every field the
 format can represent, pairwise conversions must preserve the
 intersection of both formats' fields, and serialization must
-round-trip.  This suite re-derives that strategy for the TPU build's
+round-trip.  This suite re-derives that strategy for this build's
 tag classes.
 """
 

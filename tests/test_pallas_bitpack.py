@@ -1,17 +1,13 @@
 """Equivalence tests for the device-side parallel bitpack.
 
 The parallel program (ops/pallas_bitpack.py — prefix-summed token
-offsets + masked-matmul scatter) must produce bit-for-bit the stream
-the serial writers produce.  The serial reference here is
+offsets + scatter-add) must produce bit-for-bit the stream the serial
+writers produce.  The serial reference here is
 ``ref/flac_enc.write_residual_block`` (TokenStream), which the oracle
 suites hold byte-identical to the C++ emitter — so equality below is
 transitively equality with ``_native.atpu_flac_emit_frames2``'s
-residual sections.  Runs the numpy scatter, the XLA scatter and the
-Pallas kernel in interpret mode on every backend; a gated test
-exercises the real compiled kernel when a TPU is reachable.
+residual sections.  Runs the numpy scatter and the XLA scatter.
 """
-
-import os
 
 import numpy as np
 import pytest
@@ -63,12 +59,11 @@ def batch_cases(seed=1, n=256, S=6, max_parts=8, scales=(4, 100, 5000)):
     return (orders, porders, params, res)
 
 
-def check_backend(backend, interpret=False, seed=1, n=256, S=6):
+def check_backend(backend, seed=1, n=256, S=6):
     (orders, porders, params, res) = batch_cases(seed=seed, n=n, S=S)
     n_words = pb.words_needed(n, 16, params.shape[1])
     (words, bits) = pb.pack_residual_blocks(
-        res, orders, porders, params, n_words, backend=backend,
-        interpret=interpret)
+        res, orders, porders, params, n_words, backend=backend)
     words = np.asarray(words)
     bits = np.asarray(bits)
     for s in range(S):
@@ -83,22 +78,16 @@ def test_numpy_scatter_matches_serial():
     check_backend("numpy")
 
 
-@pytest.mark.slow
 def test_xla_scatter_matches_serial():
     check_backend("xla")
-
-
-def test_pallas_interpret_matches_serial():
-    check_backend("pallas", interpret=True)
 
 
 def test_numpy_large_blocks_and_zero_order():
     check_backend("numpy", seed=7, n=4096, S=4)
 
 
-@pytest.mark.slow
-def test_pallas_interpret_large_blocks():
-    check_backend("pallas", interpret=True, seed=7, n=4096, S=4)
+def test_xla_scatter_large_blocks():
+    check_backend("xla", seed=7, n=4096, S=4)
 
 
 def test_method1_large_parameters():
@@ -115,13 +104,6 @@ def test_method1_large_parameters():
     assert pb.words_to_bytes(words[0], bits[0]) == expect
 
 
-@pytest.mark.skipif(
-    os.environ.get("ATPU_PALLAS_TPU", "0") != "1",
-    reason="real-chip Pallas run is opt-in (ATPU_PALLAS_TPU=1)")
-def test_pallas_real_chip_matches_serial():
-    check_backend("pallas", interpret=False, n=4096, S=4)
-
-
 # ---------------------------------------------------------------------
 # production path: ATPU_PALLAS=1 routes encode_flac_fast's jax backend
 # through device residual packing + the emit splice
@@ -135,7 +117,7 @@ def _encode_bytes(arr, bps, backend, monkeypatch, pallas):
     from audiotools_tpu.codecs.flac_enc_fast import encode_flac_fast
 
     monkeypatch.setenv("ATPU_PALLAS", "1" if pallas else "0")
-    # the pallas path requires exact uploads, so it implies qpack off;
+    # device packing requires exact uploads, so it implies qpack off;
     # the host baseline must analyze the same (exact) samples or its
     # decisions legitimately differ by a few bits per frame
     monkeypatch.setenv("ATPU_FLAC_QPACK", "0")

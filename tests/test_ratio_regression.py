@@ -96,7 +96,7 @@ def test_single_fixture_not_larger():
 @requires_corpus
 def test_corpus_ratio_holds():
     """the full ratio_parity protocol: corpus delta <= -9% AND every
-    fixture <= reference (the round-4 verdict's regression gate)"""
+    fixture <= reference (the ratio regression gate)"""
     total_ref = total_ours = 0
     larger = []
     for name in corpus_fixtures():

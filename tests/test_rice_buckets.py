@@ -1,8 +1,5 @@
-"""The Pallas rice-chunk decode kernel must produce the same
-residuals as the lock-step scan form (which the full batteries hold
-byte-identical to the host decoder).  Runs in interpret mode on
-small shapes — the production dispatch uses the kernel on real TPUs
-only (the CPU interpreter walks its unrolled ops one by one)."""
+"""The chunk-bucket Rice decoders (lock-step scan and pointer
+doubling, jitted) must return the values a bucket was coded from."""
 
 import numpy as np
 import pytest
@@ -13,8 +10,9 @@ from audiotools_tpu.ops import rice_decode  # noqa: E402
 
 
 def _random_bucket(seed, P, W, C, mix_raw=True):
-    """builds a coherent random bucket: windows synthesized by
-    ENCODING random codes so every lane's bit stream is valid"""
+    """builds a coherent random bucket by ENCODING random codes, so
+    every lane's bit stream is valid; returns the bucket and the
+    [P, C] values it codes (zeros past each lane's count)"""
     rng = np.random.default_rng(seed)
     N = W * 32
     bits = np.zeros((P, N), dtype=np.uint8)
@@ -27,6 +25,7 @@ def _random_bucket(seed, P, W, C, mix_raw=True):
         k[rawsel] = -1
     count = rng.integers(1, C + 1, P).astype(np.int32)
     values = rng.integers(-40, 40, (P, C)).astype(np.int64)
+    coded = np.zeros((P, C), dtype=np.int32)
 
     for p in range(P):
         pos = int(base_bits[p])
@@ -35,15 +34,14 @@ def _random_bucket(seed, P, W, C, mix_raw=True):
             if raw[p] >= 0:
                 nb = int(raw[p])
                 val = v & ((1 << nb) - 1)
+                if pos + nb >= N - 1:
+                    count[p] = c
+                    break
                 for b in range(nb):
-                    if pos >= N - 1:
-                        count[p] = c
-                        break
                     bits[p, pos] = (val >> (nb - 1 - b)) & 1
                     pos += 1
-                else:
-                    continue
-                break
+                # a raw run reads back sign-extended from nb bits
+                coded[p, c] = val - ((val >> (nb - 1)) << nb)
             else:
                 kk = int(k[p])
                 u = (v << 1) ^ (v >> 63)
@@ -57,20 +55,20 @@ def _random_bucket(seed, P, W, C, mix_raw=True):
                 for b in range(kk):
                     bits[p, pos] = (u >> (kk - 1 - b)) & 1
                     pos += 1
+                coded[p, c] = v
     count = np.maximum(count, 0)
 
     # pack MSB-first into one shared word buffer, one window per lane
-    words_per = W
-    total_words = P * words_per + 2
+    total_words = P * W + 2
     words = np.zeros(total_words, dtype=np.uint32)
-    word_base = (np.arange(P, dtype=np.int32) * words_per)
+    word_base = (np.arange(P, dtype=np.int32) * W)
     for p in range(P):
         for w in range(W):
             acc = 0
             for b in range(32):
                 acc = (acc << 1) | int(bits[p, w * 32 + b])
             words[word_base[p] + w] = acc
-    return (words, word_base, base_bits, k, raw, count)
+    return ((words, word_base, base_bits, k, raw, count), coded)
 
 
 @pytest.mark.parametrize("seed,P,W,C", [
@@ -78,13 +76,12 @@ def _random_bucket(seed, P, W, C, mix_raw=True):
     (2, 16, 8, 16),
     (3, 32, 16, 32),
 ])
-def test_pallas_kernel_matches_scan(seed, P, W, C):
-    (words, wb, bb, k, raw, count) = _random_bucket(seed, P, W, C)
+def test_scan_and_pointer_doubling_decode_coded_values(seed, P, W, C):
     import jax.numpy as jnp
 
-    ref = rice_decode.decode_partitions_scan(
-        np, words, wb, bb, k, raw, count, W, C)
-    got = np.asarray(rice_decode.decode_partitions_pallas(
-        jnp.asarray(words), jnp.asarray(wb), jnp.asarray(bb),
-        jnp.asarray(k), jnp.asarray(raw), jnp.asarray(count), W, C))
-    assert np.array_equal(ref, got)
+    (bucket, coded) = _random_bucket(seed, P, W, C)
+    for decode in (rice_decode.decode_partitions_scan,
+                   rice_decode.decode_partitions):
+        fn = jax.jit(lambda *a, decode=decode: decode(jnp, *a, W, C))
+        got = np.asarray(fn(*bucket))
+        assert np.array_equal(got, coded), decode.__name__

@@ -123,8 +123,6 @@ def main():
     print()
     print("batch = %d x %d x 2 = %.2f Msamples (%.3f s audio)" %
           (B, n, nsamples / 1e6, B * n / 44100.0))
-    print("budget for 500x realtime: %.2f ms/batch" %
-          (B * n / 44100.0 / 500.0 * 1e3,))
 
 
 if __name__ == "__main__":

@@ -1,7 +1,6 @@
 #!/usr/bin/env python
-"""Measures the DEVICE FLAC decode path end-to-end (the round-4/5
-verdict protocol: a 30 s -8 stereo file, wall-clock realtime-x,
-byte-exact vs the host decoder).
+"""Measures the DEVICE FLAC decode path end-to-end (a 30 s -8 stereo
+file, wall-clock realtime-x, byte-exact vs the host decoder).
 
 Usage: python tools_dev/bench_decode_device.py [seconds] [trials]
 """
